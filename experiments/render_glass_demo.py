@@ -1,7 +1,7 @@
 """Render the dielectric-glass demo scene to images/glass.png.
 
 The scene from tests/test_refraction.py (glass sphere, ior 1.5, over a
-rough floor with an NEE light) at gallery quality. Run on the TPU chip:
+rough floor with an NEE light) at gallery quality. Run on the GPU:
     python experiments/render_glass_demo.py [SPP] [WxH]
 """
 import sys

@@ -1,4 +1,4 @@
-"""pathtracer_tpu: a TPU-native wavefront path tracer (JAX/XLA/Pallas).
+"""pathtracer_tpu: a wavefront path tracer in JAX, run on NVIDIA GPUs.
 
 A ground-up rebuild of the capabilities of BluBloos/Pathtracer (a CPU
 recursive-megakernel path tracer for Windows) as an SPMD wavefront renderer:

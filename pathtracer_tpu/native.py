@@ -1,7 +1,7 @@
 """ctypes bindings to the native C++ components (native/).
 
-The reference's runtime is entirely native (C/C++, SURVEY.md §2); the TPU
-build keeps the compute path in XLA but implements the host-side hot loops
+The reference's runtime is entirely native (C/C++, SURVEY.md §2); this
+renderer keeps the compute path in XLA but implements the host-side hot loops
 natively too:
 
 - uniform-grid scene compile (pt_grid_count / pt_grid_fill), the

@@ -35,7 +35,7 @@ def schlick_metal(F0: jnp.ndarray, cos_theta: jnp.ndarray,
     metalness, then F0 + (1-cos)^5 (1-F0) per channel."""
     shape = jnp.shape(cos_theta)
     vF0 = lerp(splat((1.0, 1.0, 1.0), shape) * F0, surface_color, metalness)
-    # (1-cos)^5 as multiplies — pow is a transcendental on the VPU
+    # (1-cos)^5 as multiplies, not pow (a transcendental)
     m = 1.0 - cos_theta
     m2 = m * m
     p = m2 * m2 * m
@@ -93,7 +93,7 @@ def find_refraction_direction(ray_dir: Vec3, N: Vec3, nglass: jnp.ndarray
     )
     cos1 = jnp.clip(dot(Nf, ray_dir), -1.0, 1.0)
     # trig-free Snell (sin(acos(x)) = sqrt(1-x^2), cos(asin(x)) =
-    # sqrt(1-x^2) on the relevant branches) — Mosaic has no acos/asin
+    # sqrt(1-x^2) on the relevant branches): no acos/asin round trip
     sin1 = jnp.sqrt(jnp.maximum(1.0 - cos1 * cos1, 0.0))
     lhs = n1 / n2 * sin1
     ok = lhs <= 1.0

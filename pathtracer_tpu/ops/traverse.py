@@ -2,7 +2,8 @@
 
 Replaces the reference's pointer-octree traversal with an explicit
 thread-local node stack (win32_main.cpp:476-526). A per-lane stack of
-pointers is hostile to the VPU; instead each lane walks the 64^3 leaf grid
+pointers is hostile to lane-parallel code; instead each lane walks the
+64^3 leaf grid
 with a 3D-DDA — visiting exactly the leaves the octree descent would reach —
 and tests the triangles binned into each visited cell (scene/accel.py, same
 binning as win32_main.cpp:1231-1382).

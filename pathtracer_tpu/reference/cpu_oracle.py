@@ -1,15 +1,15 @@
 """Scalar CPU oracle: an independent, loop-based implementation of the
-reference algorithm used as the correctness anchor for the TPU renderer.
+reference algorithm used as the correctness anchor for the JAX renderer.
 
 This is the role BASELINE.md assigns to "a scalar NumPy/CPU reference": a
 straightforward per-pixel, per-sample, per-bounce port of the reference
 semantics (RayCast win32_main.cpp:558-823, RayCastIntersect :406-556,
-RenderTexel :990-1186) sharing NO code with the TPU integrator — including
+RenderTexel :990-1186) sharing NO code with the JAX integrator — including
 the PRNG: the PCG4D counter streams are reimplemented below in pure numpy
 (same published constants, independently written), so the golden gates also
 cover utils/prng.py itself (a masking/bitcast/tag bug there cannot cancel
 out of the comparison). Both sides consume identical streams keyed on
-(pixel, sample, bounce, slot), so a TPU render and an oracle render of the
+(pixel, sample, bounce, slot), so a device render and an oracle render of the
 same configuration agree to float32 rounding, not just in distribution.
 That is what makes the RMSE < 1e-3 golden gate meaningful.
 
@@ -364,7 +364,7 @@ def hammon(N, L, V, roughness):
 
 def sample_texture_host(tex, u, v):
     """Float32-exact bilinear-wrap sampling, op-order identical to the device
-    kernel (ops/texture.py) so texel selection never diverges."""
+    sampler (ops/texture.py) so texel selection never diverges."""
     h, w = tex.shape[:2]
     u, v = abs(F32(u)), abs(F32(v))
     x1, y1 = int(u), int(v)
@@ -387,7 +387,7 @@ def _mip_lod(t, cos_theta, k, n_levels):
     """Scalar twin of the device LOD rule (integrator.shade_bounce, opt-in
     via mip_scale): fp = t * k / max(|cos|, 0.1) with k the f32-rounded
     mip_scale * w0 * 0.5 constant; lod = floor(log2(fp)) clamped to the
-    pyramid via the same threshold sweep the kernel unrolls."""
+    pyramid via the same threshold sweep the renderer unrolls."""
     fp = F32(t) * k / max(abs(F32(cos_theta)), F32(0.1))
     lod = 0
     for lk in range(1, n_levels):
@@ -404,7 +404,7 @@ def trace_path(world: HostWorld, o, d, u_bounce, just_cosine,
                use_russian_roulette=False, mip=None):
     """Iterative equivalent of RayCast(world, o, d, 0) consuming
     u_bounce[(bounce, slot)] uniforms. Kills zero-pdf / degenerate draws
-    instead of retrying (same policy as the TPU integrator)."""
+    instead of retrying (same policy as the JAX integrator)."""
     radiance = np.zeros(3, F32)
     throughput = np.ones(3, F32)
     light = world.spheres[0] if world.spheres else None
@@ -715,7 +715,7 @@ def render_oracle(
     spp = pp * pp
 
     # Precompute the uniform streams from the pure-numpy PCG4D twin (same
-    # counters the TPU renderer hashes on device; no jax on this side).
+    # counters the JAX renderer hashes on device; no jax on this side).
     pixel_idx = np.arange(n_pix, dtype=np.uint32)
     jit_u = np.zeros((n_pix, spp, 2), np.float32)
     bnc_u = np.zeros((n_pix, spp, MAX_BOUNCE_COUNT, _BOUNCE_SLOTS), np.float32)

@@ -11,7 +11,7 @@ color-distance weight. Runs on the LINEAR radiance image before the
 tonemap; OFF by default (renders are unbiased without it, and golden
 tests gate the raw estimator).
 
-TPU shape notes: the filter is 25 static edge-clamped shifts per
+Shape notes: the filter is 25 static edge-clamped shifts per
 iteration over an (H, W, 3) image — pure vectorized elementwise work XLA
 fuses well; no gathers, no data-dependent control flow.
 """

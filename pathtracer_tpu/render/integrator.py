@@ -2,7 +2,7 @@
 
 The reference integrator is a recursive megakernel (`RayCast`,
 win32_main.cpp:558-823) with divergent control flow. Recursion and
-divergence don't map to XLA, so the TPU build restructures it as an
+divergence don't map to XLA, so this renderer restructures it as an
 *iterative throughput accumulation*. Unrolling the observation
 
     RayCast(depth) = emit(depth) + w(depth) * RayCast(depth+1),
@@ -48,7 +48,6 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -87,10 +86,6 @@ DEBUG_KINDS = (REGULAR, PRIMARY_RAY_NORMALS, BOUNCE_COUNT,
 class TraceStats(NamedTuple):
     """Per-batch instrumentation for the Mrays/sec metric."""
     rays_cast: jnp.ndarray  # scalar: total intersect invocations over live lanes
-    # per-lane cast counts (sums to rays_cast over the REAL lanes; the
-    # Pallas lockstep driver needs the per-lane split so mesh-padding
-    # lanes can be trimmed before the metric is accumulated)
-    lane_casts: jnp.ndarray = ()
 
 
 class BounceOut(NamedTuple):
@@ -106,22 +101,15 @@ class BounceOut(NamedTuple):
     shading_normal: Vec3  # post-normal-map N (primary-ray-normals target)
 
 
-# Tables up to this size always use compare/select sweeps (required for
-# Mosaic, which cannot lower gathers). On TPU the sweep also beats per-lane
-# gathers up to ~500 rows (world 4's 424 materials: 3x), but the big sweep
-# blows up CPU compile time/memory, so the extended threshold is
-# backend-gated (values are identical either way — pure lookup).
-_SELECT_LOOKUP_MAX = 192
-_SELECT_LOOKUP_MAX_TPU = 512
-# Inside the Pallas kernel, tables above this size switch from the select
-# sweep to the windowed lane-LUT lookup (tpu.dynamic_gather over 128-wide
-# static slices) — O(M/128) gathers instead of O(M) selects per field.
-_KERNEL_MAT_WINDOW_MIN = 128
-
-
-def _sweep_threshold() -> int:
-    return _SELECT_LOOKUP_MAX if jax.default_backend() == "cpu" \
-        else _SELECT_LOOKUP_MAX_TPU
+# Material tables up to this many rows are looked up with an unrolled
+# compare/select sweep; larger ones with one per-lane gather per field.
+# Values are identical either way (pure lookup). On an H100 (400 W limit)
+# the gather was faster at both sizes timed, 1280x720 and 16 spp: world 2
+# (124 rows) 0.26 s vs 0.29 s, world 4 (485 rows) 0.18 s vs 0.33 s, and
+# the sweep's code grows with the table (world 4: 83 s to compile vs 9 s).
+# Every other world has at most 7 rows; the crossover below 124 rows is
+# not measured.
+_SELECT_LOOKUP_MAX = 32
 
 
 def _material_fields(scene: Scene) -> dict:
@@ -137,7 +125,7 @@ def _material_fields(scene: Scene) -> dict:
     )
     if scene.any_transmissive:
         # only fetched when a dielectric exists: opaque scenes keep the
-        # exact reference lookup set (and kernel code) unchanged
+        # exact reference lookup set (and compiled code) unchanged
         fields["transmission"] = scene.mat_transmission
     if scene.any_dispersive:
         fields["dispersion"] = scene.mat_dispersion
@@ -158,53 +146,17 @@ def _const_field(v, mat):
     return jnp.full(mat.shape, v[0], v.dtype)
 
 
-def _material_lookup_windowed(scene: Scene, mat: jnp.ndarray):
-    """In-kernel material fetch via the 128-lane-window LUT (the same
-    tpu.dynamic_gather primitive as the texture path, ops/texture.py).
-    Tables are padded to a 128 multiple (scene/schema.py); each window is a
-    STATIC slice broadcast across the block, gathered with the in-window
-    index, and selected where the lane's index falls in the window.
-    Bit-identical to the sweep (pure lookup); verified against it in
-    tests/test_clusters.py."""
-    M = scene.mat_roughness.shape[0]
-    n_win = M // 128
-
-    def fetch(tab):
-        acc = None
-        for w in range(n_win):
-            row = jnp.broadcast_to(tab[w * 128:(w + 1) * 128][None, :],
-                                   mat.shape)
-            idx = jnp.clip(mat - w * 128, 0, 127)
-            got = jnp.take_along_axis(row, idx, axis=1)
-            # windows ascend: the containing window's value wins
-            acc = got if acc is None else jnp.where(mat >= w * 128, got, acc)
-        return acc
-
-    return {
-        k: _const_field(v, mat) if k in scene.mat_const
-        else Vec3(fetch(v.x), fetch(v.y), fetch(v.z)) if isinstance(v, Vec3)
-        else fetch(v)
-        for k, v in _material_fields(scene).items()
-    }
-
-
-def _material_lookup(scene: Scene, mat: jnp.ndarray):
+def _material_lookup(scene: Scene, mat: jnp.ndarray, sweep=None):
     """Per-lane material record lookup (material_t, ray.hpp:36-79).
 
-    For small tables an unrolled compare/select sweep beats a hardware
-    gather on the VPU (one vectorized compare+select per row vs a serial
-    gather per lane); large tables use gathers — per-lane XLA gathers on
-    the XLA drivers, the windowed lane-LUT inside the Pallas kernel (which
-    has no gather instruction and where a ~400-row sweep dominates the
-    bounce, BENCH.md round 2)."""
-    from ..ops.intersect import _tracing_pallas_kernel
+    ``sweep`` picks the form: an unrolled compare/select sweep over the
+    rows, or one per-lane gather per field. None = the sweep for tables of
+    up to _SELECT_LOOKUP_MAX rows, gathers above."""
     n = scene.n_materials
-    if (_tracing_pallas_kernel and mat.ndim == 2
-            and n > _KERNEL_MAT_WINDOW_MIN):
-        return _material_lookup_windowed(scene, mat)
-    sweep_max = _sweep_threshold()
+    if sweep is None:
+        sweep = n <= _SELECT_LOOKUP_MAX
     fields = _material_fields(scene)
-    if n > sweep_max:
+    if not sweep:
         return {
             k: _const_field(v, mat) if k in scene.mat_const
             else gather(v, mat) if isinstance(v, Vec3) else v[mat]
@@ -272,23 +224,14 @@ def shade_bounce(
 
     def _planar_fetch(idx, u=None, v=None):
         """Bespoke planar map fetch for 1-based material index field
-        ``idx`` (0 = unbound; callers mask). Inside the Pallas kernel
-        the tiled-stack windowed fetch replaces the per-lane gather —
-        same texels, same blend, bit-identical (ops/texture.py)."""
-        from ..ops import texture as _tex
+        ``idx`` (0 = unbound; callers mask)."""
         layer = jnp.maximum(idx - 1, 0)
         uu = hitpoint.x if u is None else u
         vv = hitpoint.y if v is None else v
-        if _tex.KERNEL_STACK_REF is not None:
-            return _tex.bespoke_sample_stack_windowed(
-                scene, _tex.KERNEL_STACK_REF, layer, uu, vv, idx != 0)
         return bespoke_sample(scene, layer, uu, vv)
     if scene.n_textures and scene.tex_combined:
-        # canonical 4-map set: fused 2-word fetch (ops/texture.py).
-        # Inside the Pallas kernel the table lives in VMEM and the fetch
-        # iterates distinct 8x8 tiles (bespoke_sample_combined_windowed);
-        # the XLA drivers keep the flat-gather version. Same words, same
-        # blend — bit-identical results.
+        # canonical 4-map set: fused 2-word flat-gather fetch
+        # (ops/texture.py)
         from ..ops import texture as _tex
         has_tex = mat["albedo_idx"] != 0
         lod = None
@@ -297,19 +240,15 @@ def shade_bounce(
             # mip-0-only is reference parity, win32_main.cpp:620,630,639).
             # Footprint: texels one pixel covers at distance t, widened by
             # grazing incidence; lod = floor(log2(fp)) via a static
-            # threshold sweep (no log2 in Mosaic). The oracle computes the
-            # identical f32 expression (cpu_oracle._mip_lod).
+            # threshold sweep, exact at the level boundaries. The oracle
+            # computes the identical f32 expression (cpu_oracle._mip_lod).
             k = float(np.float32(mip_scale * scene.tex_comb_w * 0.5))
             fp = hit.t * jnp.float32(k) / jnp.maximum(
                 jnp.abs(cos_theta_in), jnp.float32(0.1))
             lod = jnp.zeros(shape, jnp.int32)
             for lk in range(1, len(scene.tex_mip_meta)):
                 lod = lod + (fp >= jnp.float32(2.0 ** lk)).astype(jnp.int32)
-        if _tex.KERNEL_TEX_REF is not None:
-            alb_c, met_c, rgh_c, nrm_c = _tex.bespoke_sample_combined_windowed(
-                scene, _tex.KERNEL_TEX_REF, hitpoint.x, hitpoint.y, has_tex,
-                lod=lod)
-        elif lod is not None:
+        if lod is not None:
             alb_c, met_c, rgh_c, nrm_c = _tex.bespoke_sample_combined_mip(
                 scene, hitpoint.x, hitpoint.y, lod)
         else:
@@ -334,9 +273,8 @@ def shade_bounce(
         albedo_tex = (has_tex, alb_c)
     elif scene.n_textures and not scene.tex_mesh_only:
         # (tex_mesh_only: every textured material is a triangle-albedo
-        # binding, so these planar bespoke fetches can never apply — and
-        # skipping them statically is what keeps mesh-UV scenes free of
-        # per-lane gathers inside the Pallas kernel)
+        # binding, so these planar bespoke fetches can never apply, and
+        # skipping them statically saves their gathers)
         if scene.use_metalness_maps:
             mtl_tex = _planar_fetch(mat["metalness_idx"])
             metalness = jnp.where(mat["metalness_idx"] != 0, mtl_tex.x, metalness)
@@ -362,24 +300,9 @@ def shade_bounce(
         # the reference's normal maps :642) and tilt N against the
         # gradient: heightfield normal ∝ (-dh/dx, -dh/dy, 1).
         beps = jnp.float32(0.01)
-        from ..ops import texture as _btex
-        if _btex.KERNEL_STACK_REF is not None:
-            # fused 3-point fetch: one windowed iteration over all 12
-            # corners (the eps-shifted footprints share almost every
-            # tile) instead of three serial min-reduce chains
-            h0, hx, hy = _btex.bespoke_height3_stack_windowed(
-                scene, _btex.KERNEL_STACK_REF,
-                jnp.maximum(mat["bump_idx"] - 1, 0),
-                ((hitpoint.x, hitpoint.y),
-                 (hitpoint.x + beps, hitpoint.y),
-                 (hitpoint.x, hitpoint.y + beps)),
-                mat["bump_idx"] != 0)
-        else:
-            h0 = _planar_fetch(mat["bump_idx"]).x
-            hx = _planar_fetch(mat["bump_idx"],
-                               hitpoint.x + beps, hitpoint.y).x
-            hy = _planar_fetch(mat["bump_idx"],
-                               hitpoint.x, hitpoint.y + beps).x
+        h0 = _planar_fetch(mat["bump_idx"]).x
+        hx = _planar_fetch(mat["bump_idx"], hitpoint.x + beps, hitpoint.y).x
+        hy = _planar_fetch(mat["bump_idx"], hitpoint.x, hitpoint.y + beps).x
         bs = mat["bump_scale"]
         gx = (hx - h0) / beps * bs
         gy = (hy - h0) / beps * bs
@@ -502,19 +425,12 @@ def shade_bounce(
         # win32_main.cpp:172): lanes whose winner is a UV triangle sample
         # the material's texture at the interpolated texcoord, MODULATED
         # by the material albedo (= glTF baseColorFactor, spec semantics)
-        # — unlike the bespoke path, which replaces. Inside the Pallas
-        # kernel the stack rides VMEM tiled (Scene.tex_stack_tile) and the
-        # fetch is the windowed lane-LUT iteration; same texels, same
-        # blend expression, bit-identical results.
+        # — unlike the bespoke path, which replaces.
         from ..ops import texture as _tex
         uvx, uvy, uv_ok = uv
         layer = jnp.maximum(mat["albedo_idx"] - 1, 0)
         use_uv = uv_ok & (mat["albedo_idx"] != 0)
-        if _tex.KERNEL_STACK_REF is not None:
-            tex_uv = _tex.sample_texture_stack_windowed(
-                scene, _tex.KERNEL_STACK_REF, layer, uvx, uvy, use_uv)
-        else:
-            tex_uv = _tex.sample_texture(scene, layer, uvx, uvy)
+        tex_uv = _tex.sample_texture(scene, layer, uvx, uvy)
         albedo = vwhere(use_uv, hadamard(mat["albedo"], tex_uv), albedo)
     brdf_diff = hadamard(kd, albedo) * (ndotl / PI)
     spec_scalar = brdf_specular_scalar(N, L, V, H, roughness)
@@ -577,8 +493,6 @@ def shade_bounce(
                         (ch == 2).astype(jnp.float32) * three)
             w_trans = vwhere(is_disp, hadamard(albedo, mask), albedo)
         weight = vwhere(trans, w_trans, weight)
-        # boolean select (a where on i1 operands fails Mosaic lowering:
-        # "unsupported target bitwidth for truncation")
         cont = (trans & surface) | (~trans & cont)
 
     if scene.fog_sigma_t > 0.0:
@@ -695,7 +609,6 @@ def trace(
     throughput = splat((1.0, 1.0, 1.0), shape)
     alive = jnp.ones(shape, bool)
     rays_cast = jnp.zeros((), jnp.float32)
-    lane_casts = zeros()
 
     # debug-mode carries
     primary_n = zvec()
@@ -706,7 +619,6 @@ def trace(
 
     for b in range(MAX_BOUNCE_COUNT):
         rays_cast = rays_cast + jnp.sum(alive.astype(jnp.float32))
-        lane_casts = lane_casts + alive.astype(jnp.float32)
         if scene.has_mesh_uvs:
             hit, uvx, uvy, uv_ok = intersect_scene_uv(scene, o, d)
             uv = (uvx, uvy, uv_ok)
@@ -773,135 +685,5 @@ def trace(
     elif debug_kind == TERMINATION_CONDITION:
         radiance = cond_color
 
-    return radiance, TraceStats(rays_cast=rays_cast, lane_casts=lane_casts)
+    return radiance, TraceStats(rays_cast=rays_cast)
 
-
-def trace_fori(
-    scene: Scene,
-    o: Vec3,
-    d: Vec3,
-    pkeys: prng.PathStream,
-    use_russian_roulette: bool = False,
-    mip_scale: float = 0.0,
-    unroll: int = 1,
-) -> Tuple[Vec3, TraceStats]:
-    """:func:`trace` with the bounce loop as ``lax.fori_loop`` instead of
-    a Python unroll — the COMPILE-SIZE-BOUNDED driver for the Pallas
-    lockstep loop. The unrolled trace bakes MAX_BOUNCE_COUNT copies of
-    intersect+shade (plus, on textured scenes, the windowed-fetch while
-    loops) into one straight-line Mosaic compile unit; world 1's kernel
-    measured 504 s to compile (VERIFY_r04.json). Looping the bounce makes
-    kernel code size O(1) in bounce count while keeping every lane at the
-    SAME bounce (the lockstep coherence the texture fetch feeds on).
-
-    Per-path arithmetic matches trace exactly, in the _wave_loop style:
-    the traced bounce index feeds the same prng tag math, terminal-depth
-    and Russian-roulette branches become masks (``b >= 1`` etc.) whose
-    values equal the unrolled Python branches at every b. REGULAR /
-    VARIANCE only (debug kinds keep the unrolled driver: their per-bounce
-    captures want Python-level specialization, and debug renders are not
-    the hot path)."""
-    shape = jnp.shape(o.x)
-    # Kernel layout inference: every fori carry's INIT must have a concrete
-    # per-lane layout, or Mosaic infers the carry replicated and the body's
-    # concrete yield has no valid relayout ("Invalid relayout: Non-singleton
-    # logical dimension is replicated in destination but not in source" —
-    # the round-4 world-1 crash, BENCH_r04.json). A pinhole camera's o is a
-    # replicated splat (one origin for every lane), so derive zeros from d
-    # (per-lane by construction) and launder o itself through an always-true
-    # data-dependent select — numerically the identity.
-    concrete = d.x < jnp.inf
-    o = Vec3(jnp.where(concrete, o.x, d.x),
-             jnp.where(concrete, o.y, d.y),
-             jnp.where(concrete, o.z, d.z))
-    zeros = lambda: jnp.where(concrete, 0.0, d.x)
-    zvec = lambda: Vec3(zeros(), zeros(), zeros())
-    ones = lambda: zeros() + 1.0
-
-    def body(b, carry):
-        o, d, radiance, throughput, alive_f, lane_casts = carry
-        alive = alive_f > 0.0
-        lane_casts = lane_casts + alive_f
-        if scene.has_mesh_uvs:
-            hit, uvx, uvy, uv_ok = intersect_scene_uv(scene, o, d)
-            uv = (uvx, uvy, uv_ok)
-        else:
-            hit, uv = intersect_scene(scene, o, d), None
-        u = prng.bounce_uniforms_v(pkeys, b)
-        out = shade_bounce(scene, o, d, hit, u, mip_scale=mip_scale, uv=uv)
-
-        contrib = hadamard(throughput, out.emit)
-        radiance = Vec3(
-            jnp.where(alive, radiance.x + contrib.x, radiance.x),
-            jnp.where(alive, radiance.y + contrib.y, radiance.y),
-            jnp.where(alive, radiance.z + contrib.z, radiance.z),
-        )
-
-        at_depth_limit = b >= MAX_BOUNCE_COUNT - 1
-        cont = alive & out.cont & ~at_depth_limit
-        new_thr = hadamard(throughput, out.weight)
-        if use_russian_roulette:
-            survive, rr_thr = russian_roulette(new_thr, u[4])
-            rr_applies = b >= 1
-            cont = cont & (survive | ~rr_applies)
-            new_thr = vwhere(rr_applies, rr_thr, new_thr)
-        throughput = vwhere(cont, new_thr, throughput)
-        o = vwhere(cont, out.hitpoint, o)
-        d = vwhere(cont, out.L, d)
-        return (o, d, radiance, throughput, cont.astype(jnp.float32),
-                lane_casts)
-
-    def body_last(carry):
-        # The FINAL bounce, peeled out of the loop with a STATIC index:
-        # its continuation is forced off by depth, so everything feeding
-        # only (weight, L, hitpoint, cont) — the whole estimator sampling
-        # chain AND, on textured scenes, the windowed texture fetch
-        # (albedo/metal/rough/normal feed nothing but the brdf) — is dead
-        # code XLA can DCE. A traced bounce index hides that: the flat
-        # fori ran the full body 4x and world 1 measured 19% under the
-        # unrolled kernel (round 5). The radiance/lane_casts expressions
-        # are the ones body would have computed at this b — same draws,
-        # same accumulation order.
-        b = MAX_BOUNCE_COUNT - 1
-        o, d, radiance, throughput, alive_f, lane_casts = carry
-        alive = alive_f > 0.0
-        lane_casts = lane_casts + alive_f
-        if scene.has_mesh_uvs:
-            hit, uvx, uvy, uv_ok = intersect_scene_uv(scene, o, d)
-            uv = (uvx, uvy, uv_ok)
-        else:
-            hit, uv = intersect_scene(scene, o, d), None
-        u = prng.bounce_uniforms_v(pkeys, b)
-        out = shade_bounce(scene, o, d, hit, u, mip_scale=mip_scale, uv=uv)
-        contrib = hadamard(throughput, out.emit)
-        radiance = Vec3(
-            jnp.where(alive, radiance.x + contrib.x, radiance.x),
-            jnp.where(alive, radiance.y + contrib.y, radiance.y),
-            jnp.where(alive, radiance.z + contrib.z, radiance.z),
-        )
-        return radiance, lane_casts
-
-    init = (o, d, zvec(), Vec3(ones(), ones(), ones()), ones(), zeros())
-    # Partial unroll (``unroll`` bounce bodies per fori step): the compile-
-    # time/run-time dial between the O(1)-code fori (U=1) and the straight-
-    # line trace (U=MAX_BOUNCE_COUNT). Bounce index b = i*U + k is the same
-    # traced value either way, so per-bounce arithmetic is unchanged; only
-    # cross-bounce scheduling/fusion can differ (the documented ulp class).
-    n_loop = MAX_BOUNCE_COUNT - 1 if MAX_BOUNCE_COUNT >= 2 else \
-        MAX_BOUNCE_COUNT
-    U = max(1, min(int(unroll), n_loop))
-    while n_loop % U:
-        U -= 1
-
-    def body_u(i, carry):
-        for k in range(U):
-            carry = body(i * U + k, carry)
-        return carry
-
-    carry = jax.lax.fori_loop(0, n_loop // U, body_u, init)
-    if n_loop < MAX_BOUNCE_COUNT:
-        radiance, lane_casts = body_last(carry)
-    else:
-        (_, _, radiance, _, _, lane_casts) = carry
-    return radiance, TraceStats(rays_cast=jnp.sum(lane_casts),
-                                lane_casts=lane_casts)

@@ -2,7 +2,7 @@
 
 The reference has no checkpointing (SURVEY.md §5: a render runs
 start-to-finish; the live Win32 viewer shows partial results but nothing is
-persisted). The TPU build's accumulator (sum, sum_sq, count, diagnostics) IS
+persisted). The renderer's accumulator (sum, sum_sq, count, diagnostics) IS
 the complete render state: saving it at any chunk boundary allows exact
 resume — the counter-based PRNG guarantees the remaining samples are the
 same ones that would have been traced without the interruption.

@@ -136,8 +136,8 @@ def thin_lens_rays(
     focal_point = lens_center + ray_dir * t
 
     # Poisson-disk aperture point: disk[(rayIndex2 * rayIndex) % 12].
-    # Select-sweep over the 12-entry table instead of a gather (vector
-    # gathers are slow on the VPU and unsupported by Mosaic).
+    # Select-sweep over the 12-entry table instead of a gather: twelve
+    # selects on values already in registers.
     idx = (jnp.asarray(ray_index2) * jnp.asarray(ray_index)) % NUM_POISSON
     dx = jnp.zeros_like(jnp.asarray(idx, jnp.float32))
     dy = jnp.zeros_like(dx)

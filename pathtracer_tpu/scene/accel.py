@@ -8,7 +8,8 @@ leaf voxel spanned by the axis-aligned bounding box *of the voxel
 coordinates of its three vertices* (:1231-1382) — a conservative cover of
 the triangle, so grid traversal visits every cell that can contain a hit.
 
-On TPU, pointer trees don't fly; the octree's only purpose is pruning, and
+On a lane-parallel device pointer trees don't fly; the octree's only
+purpose is pruning, and
 a uniform grid walked with a 3D-DDA prunes equally well for these scenes.
 We keep the exact reference binning (same sep = WORLD_SIZE / 2^LEVELS, same
 floor()+half convention :1261-1268) and flatten cell->triangle lists into

@@ -56,9 +56,9 @@ def _ground_plane(b: WorldBuilder, mat: int):
 def _uv_sphere_mesh(center, radius, n_seg: int = 32, n_ring: int = 24):
     """Deterministic UV-sphere triangle soup with per-vertex [0,1]^2
     texcoords (longitude, colatitude). Pole rows emit single triangles
-    (the collapsed quad edge would make degenerate records). 1472 tris
-    at the default resolution — above clusters.STREAM_MIN, so world 7
-    exercises the streamed kernel tier with UV rows."""
+    (the collapsed quad edge would make degenerate triangles). 1472
+    tris at the default resolution: world 7 is the triangle-heavy world
+    with UV-textured shading."""
     cs = np.asarray(center, np.float32)
     th = np.linspace(0.0, np.pi, n_ring + 1)
     ph = np.linspace(0.0, 2.0 * np.pi, n_seg + 1)
@@ -248,11 +248,10 @@ def build_world(
         # mesh-UV textured-materials path (the reference's "load
         # materials with textures" TODO, win32_main.cpp:172) as a
         # first-class benchable scene — a procedurally UV-mapped sphere
-        # mesh (1472 tris: the streamed kernel tier with parallel UV
-        # rows) wearing a generated pow2 checker, on the reference
-        # ground plane, lit by an emissive sphere (spheres[0] = the NEE
-        # target, :683). Asset-free and deterministic so goldens,
-        # bench --world 7 and bench --verify can all cover it.
+        # mesh (1472 tris) wearing a generated pow2 checker, on the
+        # reference ground plane, lit by an emissive sphere (spheres[0] =
+        # the NEE target, :683). Asset-free and deterministic so goldens,
+        # bench --world 7 and chip_smoke.py can all cover it.
         _add_sky(b, (0.35, 0.45, 0.6))
         light = b.add_material(albedo=(0, 0, 0), emit=(10.0, 9.5, 9.0))
         b.add_sphere((5.0, -4.0, 7.0), 1.2, light)
@@ -336,10 +335,9 @@ def finalize_world(
 
     ``use_grid`` selects the uniform-grid DDA traversal for triangles
     (results identical to brute force — tested in test_accel.py). Default
-    OFF: per-lane divergent grid walks measured ~70x slower than chunked
-    brute force on the VPU at reference mesh sizes; the grid remains the
-    right structure for much larger meshes and for a future blocked
-    traversal kernel.
+    OFF: chunked brute force is the measured-simpler path at reference
+    mesh sizes; whether the grid or a BVH wins on the GPU is not measured
+    yet.
     """
     b, cam = build_world(
         kind,
@@ -360,7 +358,6 @@ def finalize_world(
         use_metalness_maps=use_metalness_maps,
         use_roughness_maps=use_roughness_maps,
         grid=grid,
-        view_origin=cam.pos,
     )
     camera = define_camera(
         cam.pos, cam.target, cam.fov, image_width, image_height,

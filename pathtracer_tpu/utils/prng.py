@@ -2,8 +2,8 @@
 
 The reference uses a single global Mersenne-Twister shared (unsynchronized)
 across all render threads (reference include/ray_math.hpp:245-248) — a data
-race it documents itself. The TPU build replaces it with a *pure counter-based
-scheme*: every random number is a deterministic function of
+race it documents itself. This renderer replaces it with a *pure
+counter-based scheme*: every random number is a deterministic function of
 
     (seed, pixel_index, sample_index, stream_tag, bounce, slot)
 
@@ -21,7 +21,7 @@ Consequences:
 Generator: PCG4D (Jarzynski & Olano, "Hash Functions for GPU Rendering",
 JCGT 2020) — the standard counter hash for production GPU path tracers.
 One evaluation mixes a (seed, pixel, sample, tag) lane vector into 4
-uniform u32s in ~20 integer VPU ops; an earlier threefry implementation of
+uniform u32s in ~20 integer ops; an earlier threefry implementation of
 this module measured at 59% of total frame time, PCG4D is ~10x cheaper
 with rendering-grade statistical quality (tested in tests/test_math.py).
 
@@ -58,8 +58,7 @@ TAG_BOUNCE = 0x0400_0000
 
 BOUNCE_SLOTS = 8
 
-# python scalars (not jnp constants: those would be captured as closure
-# constants by pallas kernels that call into this module)
+# python scalars, so they fold into the compiled code as immediates
 _U24 = 0xFFFFFF
 _INV_U24 = 1.0 / (1 << 24)
 
@@ -98,8 +97,10 @@ def _pcg4d(a, b, c, d):
 def _to_unit(x: jnp.ndarray) -> jnp.ndarray:
     """uint32 -> float32 uniform in [0, 1) via the top 24 bits.
 
-    The masked value fits in 24 bits, so bitcast to int32 before the float
-    conversion — Mosaic (Pallas TPU) has no uint32->float32 cast.
+    The masked value fits in 24 bits, so it is bitcast to int32 before
+    the float conversion. Any exact conversion gives the same value; this
+    one is kept because the oracle twin (reference/cpu_oracle.py) is
+    written against these exact bits.
     """
     masked = (x >> jnp.uint32(8)) & _U24
     return jax.lax.bitcast_convert_type(masked, jnp.int32).astype(jnp.float32) * _INV_U24
@@ -142,10 +143,8 @@ def path_keys(key, pixel_idx: jnp.ndarray, sample_idx) -> PathStream:
 def jitter_uniforms(stream: PathStream):
     """Two uniforms for stratified sub-pixel jitter (win32_main.cpp:1056-1057).
 
-    Returns a TUPLE of (N,) arrays, never a stacked (N, 2) array: a size-2
-    minor axis would land on the TPU lane dimension and get padded to 128
-    (a 64x memory blowup measured as the dominant cost of the threefry
-    predecessor of this module)."""
+    Returns a TUPLE of (N,) arrays, never a stacked (N, 2) array, in the
+    structure-of-arrays layout every per-lane quantity uses (utils/vec.py)."""
     a, b, _, _ = _draw4(stream, TAG_JITTER)
     return a, b
 

@@ -1,8 +1,8 @@
 """Profiling & metrics: wall-clock phases, Mrays/sec, JAX profiler traces.
 
 The reference has essentially no instrumentation (SURVEY.md §5: the only
-instrument is an unused rdtsc calibration, inf_forge_win.c:357-377). The TPU
-build makes perf a first-class output: every render reports rays cast,
+instrument is an unused rdtsc calibration, inf_forge_win.c:357-377). This
+renderer makes perf a first-class output: every render reports rays cast,
 wall-clock per phase, and Mrays/sec — the BASELINE.json headline metric —
 and can capture a JAX profiler trace for xprof.
 """

@@ -1,10 +1,10 @@
-"""Structure-of-arrays 3-vector math for TPU.
+"""Structure-of-arrays 3-vector math.
 
 The reference implements an AoS ``v3`` struct with operator overloads
-(reference: include/ray_math.hpp:53-241). On TPU the idiomatic layout is
-structure-of-arrays: each component is its own array so a batch of N vectors
-maps N onto the VPU lanes (8x128) with no wasted sublanes on a size-3 minor
-axis. ``Vec3`` is a NamedTuple (hence automatically a JAX pytree) of three
+(reference: include/ray_math.hpp:53-241). Here the layout is
+structure-of-arrays: each component is its own array, so a batch of N
+vectors is three contiguous length-N arrays (coalesced loads on the GPU,
+no size-3 minor axis). ``Vec3`` is a NamedTuple (hence automatically a JAX pytree) of three
 same-shaped arrays; every op below is elementwise over the batch and fuses
 under XLA.
 
@@ -118,8 +118,8 @@ def magnitude(a: Vec3) -> jnp.ndarray:
 
 
 def normalize(a: Vec3, eps: float = 0.0) -> Vec3:
-    """ray_math.hpp:211 Normalize. The reference asserts magnitude > 0; on
-    TPU a zero-length input yields inf/nan lanes which downstream masks must
+    """ray_math.hpp:211 Normalize. The reference asserts magnitude > 0; here
+    a zero-length input yields inf/nan lanes which downstream masks must
     kill (we never resample like win32_main.cpp:1068 — see integrator)."""
     m = magnitude(a)
     if eps:

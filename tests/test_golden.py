@@ -71,8 +71,8 @@ class TestGolden:
         assert _compare(WORLD_CORNELL_QUAD, 24, 16, 2) < 1e-4
 
     def test_world_mesh_uv(self):
-        # -w7: UV-textured sphere mesh (1472 tris, streamed tier on the
-        # kernel; brute UV loop here on the XLA driver) vs the oracle.
+        # -w7: UV-textured sphere mesh (1472 tris, chunked brute-force UV
+        # loop) vs the oracle.
         # textured: texel selection amplifies 1-ulp diffs into flips.
         from pathtracer_tpu.scene.schema import WORLD_MESH_UV
         assert _compare(WORLD_MESH_UV, 16, 12, 2, textured=True) < 5e-3
@@ -84,7 +84,7 @@ class TestGolden:
                         textured=True) < 5e-3
 
     def test_world_mario_triangles(self):
-        # GLTF mesh via the clustered intersector (config 5)
+        # GLTF mesh via the brute-force triangle loop (config 5)
         assert _compare(WORLD_MARIO, 16, 12, 2) < 1e-4
 
     def test_world1_thin_lens(self):
@@ -116,3 +116,47 @@ class TestGolden:
         img2, _, _ = render_image(scene, cam, cfg, chunk_samples=2)
         np.testing.assert_allclose(np.asarray(img1), np.asarray(img2),
                                    rtol=1e-5, atol=1e-6)
+
+
+class TestManyMaterialsGolden:
+    def test_1100_material_scene_matches_oracle(self):
+        """A >=1024-material scene renders correctly end to end through
+        the per-lane gather form of the material lookup."""
+        from pathtracer_tpu.scene.camera import define_camera
+        from pathtracer_tpu.scene.schema import WorldBuilder
+        rng = np.random.RandomState(11)
+        b = WorldBuilder()
+        b.add_material(emit=(0.2, 0.25, 0.3))  # sky
+        light = b.add_material(emit=(5.0, 4.5, 4.0))
+        b.add_sphere((3, -3, 5), 1.0, light)
+        mats = [b.add_material(albedo=tuple(rng.rand(3)),
+                               roughness=float(rng.rand()))
+                for _ in range(1100)]
+        for k in range(24):
+            b.add_sphere(tuple((rng.rand(3) - 0.5) * 8), 0.4 + rng.rand() * 0.6,
+                         mats[rng.randint(len(mats))])
+        w, h, pp = 16, 12, 2
+        cam = define_camera((0, -12, 1), (0, 0, 0), 35.0, w, h)
+        scene = b.finalize()
+        assert scene.n_materials >= 1024
+        cfg = RenderConfig(width=w, height=h, pp=pp, seed=3)
+        img, _, _ = render_image(scene, cam, cfg)
+        oracle = render_oracle(b, cam, w, h, pp, seed=3, world_kind=0)
+        d = np.abs(np.asarray(img) - oracle).max(axis=-1)
+        assert np.median(d) < 1e-4, float(np.median(d))
+        assert (d > 1e-2).mean() < 0.05, float((d > 1e-2).mean())
+
+
+def test_oracle_row_range_equals_full_frame_rows():
+    """render_oracle(row_range=...) keeps pixel indices global, so a band
+    of rows is bit-identical to the same rows of a whole-frame render
+    (what the on-card fidelity check compares against)."""
+    w, h, pp = 12, 8, 1
+    _, cam = finalize_world(WORLD_CORNELL_QUAD, w, h)
+    b, _ = build_world(WORLD_CORNELL_QUAD)
+    full = render_oracle(b, cam, w, h, pp, seed=4,
+                         world_kind=WORLD_CORNELL_QUAD)
+    rows = [1, 4, 7]
+    band = render_oracle(b, cam, w, h, pp, seed=4,
+                         world_kind=WORLD_CORNELL_QUAD, row_range=rows)
+    np.testing.assert_array_equal(band, full[rows])

@@ -157,14 +157,10 @@ class TestGltfTextured:
         # the checker must actually be visible (texture varies the image)
         assert img.std() > 0.01
 
-    def test_kernel_support_gating(self, tmp_path):
-        """Mesh-UV scenes ride the Pallas kernel when the tiled general
-        stack qualifies (pow2 textures, VMEM cap); non-pow2 sizes fall
-        back to the XLA drivers (schema gates tex_stack_tiled off). A
-        texture bound to a non-triangle primitive keeps the bespoke
-        planar fetches live but rides the kernel too (windowed stack)."""
-        from pathtracer_tpu.render.pallas_backend import supports
-        cfg = RenderConfig(width=8, height=8, pp=1)
+    def test_mesh_only_flag(self, tmp_path):
+        """tex_mesh_only (every textured material is a triangle-albedo
+        binding) lets shade_bounce skip the bespoke planar fetches; a
+        texture bound to a non-triangle primitive keeps them live."""
         p = _textured_glb(tmp_path)
         b = WorldBuilder()
         b.add_material(emit=(0.1, 0.1, 0.1))
@@ -172,26 +168,9 @@ class TestGltfTextured:
         pts, mats, uvs = load_gltf_textured(p, b)
         b.set_mesh(pts, mats, uvs=uvs)
         scene = b.finalize()
-        assert scene.tex_mesh_only and scene.tex_stack_tiled
-        assert supports(scene, cfg)
-        # tile-pair rows: the 8x8 checker pads to one 8x16 pair row
-        assert scene.tex_stack_tile.shape == (1, 128)
-        assert scene.tex_stack_meta == ((0, 1, 8, 8),)
+        assert scene.has_mesh_uvs and scene.tex_mesh_only
 
-        # non-pow2 texture -> XLA fallback
-        b2 = WorldBuilder()
-        b2.add_material(emit=(0.1, 0.1, 0.1))
-        b2.add_material(emit=(5, 5, 5))
-        ti = b2.add_texture(np.full((6, 10, 3), 0.5, np.float32))
-        m = b2.add_material(albedo=(1, 1, 1), albedo_idx=ti)
-        b2.set_mesh(pts, np.full(len(pts), m, np.int32), uvs=uvs)
-        s2 = b2.finalize()
-        assert s2.has_mesh_uvs and not s2.tex_stack_tiled
-        assert not supports(s2, cfg)
-
-        # texture bound to a PLANE material: the bespoke planar fetches
-        # stay live (not mesh-only), but they ride the windowed stack in
-        # the kernel too — still supported
+        # texture bound to a PLANE material: planar fetches stay live
         b3 = WorldBuilder()
         b3.add_material(emit=(0.1, 0.1, 0.1))
         b3.add_material(emit=(5, 5, 5))
@@ -202,20 +181,16 @@ class TestGltfTextured:
         b3.add_plane((0, 0, 1), 1.5, pm)
         s3 = b3.finalize()
         assert s3.has_mesh_uvs and not s3.tex_mesh_only
-        assert s3.tex_stack_tiled and supports(s3, cfg)
 
-    def test_kernel_interpret_matches_xla(self, tmp_path):
-        """The mesh-UV scene through the interpret-mode Pallas kernel
-        (in-loop UV interpolation + windowed tiled-stack fetch) vs the XLA
-        chunk. Not asserted bit-equal: the uv interpolation's mul+add
-        chain contracts to fma differently between the two compilations
-        (same class as the driver-agreement test below); gate on
-        overwhelmingly-bit-equal with tiny residuals."""
-        import jax.numpy as jnp
-        from pathtracer_tpu.render.pallas_backend import (
-            render_chunk_pallas, supports)
-        from pathtracer_tpu.render.renderer import init_accum, render_chunk
-        from pathtracer_tpu.utils import prng
+    def test_sharded_matches_single_on_uv_scene(self, tmp_path):
+        """The mesh-UV scene over a 4-device mesh: every pixel's samples
+        are a pure function of its index, so the sharded render equals
+        the single-device one up to XLA:CPU's shape-dependent fma
+        rounding in the uv interpolation."""
+        import jax
+        from pathtracer_tpu.parallel.shard import (
+            make_mesh, render_image_sharded,
+        )
         p = _textured_glb(tmp_path, factor=(1.0, 0.9, 0.8))
         b = WorldBuilder()
         b.add_material(emit=(0.3, 0.35, 0.45))
@@ -228,36 +203,18 @@ class TestGltfTextured:
         scene = b.finalize()
         w, h = 16, 12
         cfg = RenderConfig(width=w, height=h, pp=2, seed=3)
-        assert supports(scene, cfg)
         cam = define_camera((0, -8, 1), (0, 0, 1), 35.0, w, h)
-        key = prng.base_key(3)
-        n = w * h
-        ref = render_chunk(scene, cam, cfg, key, jnp.int32(0), 2,
-                           init_accum(n))
-        pal = render_chunk_pallas(scene, cam, cfg, key, jnp.int32(0), 2,
-                                  init_accum(n),
-                                  jnp.arange(n, dtype=jnp.int32),
-                                  interpret=True)
-        for ch in ("x", "y", "z"):
-            a = np.asarray(getattr(ref.sum, ch))
-            p_ = np.asarray(getattr(pal.sum, ch))
-            d = np.abs(a - p_)
-            assert (a == p_).mean() > 0.9, f"{ch}: {(a == p_).mean():.2%}"
-            assert (d > 1e-2).mean() == 0.0, f"{ch}: flips {(d > 1e-2).mean()}"
-        np.testing.assert_array_equal(np.asarray(ref.count),
-                                      np.asarray(pal.count))
+        single, _, _ = render_image(scene, cam, cfg)
+        sharded, _, _ = render_image_sharded(
+            scene, cam, cfg, mesh=make_mesh(jax.devices()[:4]))
+        d = np.abs(np.asarray(single) - np.asarray(sharded))
+        assert (d == 0).mean() > 0.8 and d.max() < 1e-4, float(d.max())
 
-    def test_kernel_multi_layer_stack(self):
-        """Two textures of DIFFERENT pow2 sizes (16x8 and 32x32) in one
-        tiled stack: the per-lane layer metadata select sweep (row offset,
-        pair pitch, wrap masks) must route each triangle's lanes to its
-        own texture. XLA driver gates bit-exact vs the oracle; the
-        interpret kernel gates at the fma-contraction tolerance."""
-        import jax.numpy as jnp
-        from pathtracer_tpu.render.pallas_backend import (
-            render_chunk_pallas, supports)
-        from pathtracer_tpu.render.renderer import init_accum, render_chunk
-        from pathtracer_tpu.utils import prng
+    def test_multi_layer_stack_matches_oracle(self):
+        """Two textures of DIFFERENT sizes (16x8 and 32x32) in one stack:
+        the per-lane layer index must route each triangle's lanes to its
+        own texture (flat gathers over the padded stack), matching the
+        oracle."""
         rng = np.random.default_rng(0)
         b = WorldBuilder()
         b.add_material(emit=(0.3, 0.35, 0.45))
@@ -282,28 +239,15 @@ class TestGltfTextured:
         floor = b.add_material(albedo=(0.5, 0.45, 0.4), roughness=0.9)
         b.add_plane((0, 0, 1), 1.5, floor)
         scene = b.finalize()
-        # layer 0: one 8x16 pair row; layer 1: 4 rows of 2 pairs
-        assert scene.tex_stack_meta == ((0, 1, 16, 8), (1, 2, 32, 32))
-        assert scene.tex_stack_tile.shape == (9, 128)
+        assert scene.tex_hmax == 32 and scene.tex_wmax == 32
         w, h = 16, 12
         cfg = RenderConfig(width=w, height=h, pp=2, seed=3)
-        assert supports(scene, cfg)
         cam = define_camera((0, -8, 1), (0, 0, 1), 35.0, w, h)
         img, _, _ = render_image(scene, cam, cfg)
         oracle = render_oracle(b, cam, w, h, 2, seed=3, world_kind=0)
         d = np.abs(np.asarray(img) - oracle).max(axis=-1)
         assert np.median(d) < 1e-4, float(np.median(d))
-        key = prng.base_key(3)
-        n = w * h
-        ref = render_chunk(scene, cam, cfg, key, jnp.int32(0), 2,
-                           init_accum(n))
-        pal = render_chunk_pallas(scene, cam, cfg, key, jnp.int32(0), 2,
-                                  init_accum(n),
-                                  jnp.arange(n, dtype=jnp.int32),
-                                  interpret=True)
-        a, p_ = np.asarray(ref.sum.x), np.asarray(pal.sum.x)
-        dd = np.abs(a - p_)
-        assert (a == p_).mean() > 0.9 and dd.max() < 1e-3
+        assert (d > 1e-2).mean() < 0.05, float((d > 1e-2).mean())
 
     def test_malformed_files_no_op(self, tmp_path):
         """Truncated or byte-corrupted containers must silently no-op —
@@ -441,185 +385,49 @@ def _uv_mesh_builder(n, seed=7, tex_size=16):
     return b
 
 
-def _kernel_rays(rng, n=1024):
+def _rays(rng, n=1024):
     from pathtracer_tpu.utils.vec import Vec3
     import jax.numpy as jnp
     o1 = [(rng.rand(n) - 0.5) * 24.0 for _ in range(3)]
     d_np = rng.randn(3, n).astype(np.float32)
     d_np /= np.linalg.norm(d_np, axis=0, keepdims=True)
-    rs = lambda a: jnp.asarray(np.asarray(a, np.float32).reshape(8, 128))
+    rs = lambda a: jnp.asarray(np.asarray(a, np.float32))
     return (Vec3(*(rs(x) for x in o1)), Vec3(*(rs(x) for x in d_np)))
 
 
-class TestMeshUVKernelTiers:
-    """The clustered (deferred-resolve) and streamed (parallel uv rows)
-    kernel triangle tiers must agree with the brute UV loop: same winners
-    (up to the precomputed-barycentric-form f32 rounding class that the
-    non-UV cluster tests already accept) and matching interpolated UVs."""
+class TestUVPassMatchesPlainPass:
+    """intersect_scene_uv carries the winner's interpolated uv through the
+    triangle loop; its hit (t, mat, normal) must equal intersect_scene's
+    bit for bit, on the unrolled (<= 192 tris) and chunked loops."""
 
-    def _compare_tiers(self, scene):
+    @pytest.mark.parametrize("n_tris", [200, 1500])
+    def test_hit_bit_equal_and_uv_in_range(self, n_tris):
         from pathtracer_tpu.ops import intersect as isect
-        import jax.numpy as jnp
-        from pathtracer_tpu.utils.vec import Vec3
-        rng = np.random.RandomState(11)
-        o, d = _kernel_rays(rng)
-        isect._tracing_pallas_kernel = True
-        try:
-            hk, uk_x, uk_y, ok_k = isect.intersect_scene_uv(scene, o, d)
-        finally:
-            isect._tracing_pallas_kernel = False
-        hb, ub_x, ub_y, ok_b = isect.intersect_scene_uv(scene, o, d)
-        t_k, t_b = np.asarray(hk.t), np.asarray(hb.t)
-        # same winner for (almost) all lanes: the t values may differ by
-        # ulps between the two triangle-test forms
-        close = np.isclose(t_k, t_b, rtol=1e-4, atol=1e-5)
-        assert close.mean() > 0.999, float(close.mean())
-        assert (np.asarray(ok_k) == np.asarray(ok_b))[close].all()
-        sel = close & np.asarray(ok_b)
-        assert sel.any()
-        du = np.abs(np.asarray(uk_x) - np.asarray(ub_x))[sel]
-        dv = np.abs(np.asarray(uk_y) - np.asarray(ub_y))[sel]
-        # uv in texel units (<= 2*16 here); 1e-2 texels ~ f32 rounding of
-        # the two barycentric forms
-        assert np.median(du) < 1e-3 and np.median(dv) < 1e-3
-        assert (du < 3e-2).mean() > 0.999 and (dv < 3e-2).mean() > 0.999
+        scene = _uv_mesh_builder(n_tris).finalize()
+        o, d = _rays(np.random.RandomState(11))
+        hu, ux, uy, ok = isect.intersect_scene_uv(scene, o, d)
+        hp = isect.intersect_scene(scene, o, d)
+        for a, b_ in ((hu.t, hp.t), (hu.mat, hp.mat), (hu.normal.x, hp.normal.x),
+                      (hu.normal.z, hp.normal.z)):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b_))
+        ok = np.asarray(ok)
+        assert ok.any()
+        # winners are triangles exactly where the plain pass hit one:
+        # uvs of the 16x16 texture scaled by 2 stay within [0, 32]
+        ux = np.asarray(ux)[ok]
+        assert (ux >= -1e-3).all() and (ux <= 32 + 1e-3).all()
 
-    def test_clustered_tier_matches_brute(self):
-        scene = _uv_mesh_builder(200).finalize()
-        assert scene.tri_clusters and not scene.tri_streamed
-        assert scene.ctri_uv0u.shape[0] >= 200
-        self._compare_tiers(scene)
-
-    def test_streamed_tier_matches_brute(self):
-        scene = _uv_mesh_builder(1500).finalize()
-        assert scene.tri_streamed
-        # default layout is cluster-field-major: 6 rows per cluster
-        assert scene.stream_uv_cfm
-        assert scene.mtri_uvpack.shape == (scene.n_stream_clusters * 6, 128)
-        self._compare_tiers(scene)
-
-    def test_streamed_rowpar_layout_matches_brute(self):
-        """The row-parallel uv fallback (PT_NO_UV_CFM=1, also the
-        leaf > 128 path) against brute — keeps the old layout tested."""
-        import os
-        os.environ["PT_NO_UV_CFM"] = "1"
-        try:
-            scene = _uv_mesh_builder(1500).finalize()
-        finally:
-            del os.environ["PT_NO_UV_CFM"]
-        assert scene.tri_streamed and not scene.stream_uv_cfm
-        assert scene.mtri_uvpack.shape == scene.mtri_pack.shape
-        self._compare_tiers(scene)
-
-    def test_uv_cfm_bit_equal_to_rowpar(self):
-        """The cfm layout's once-per-cluster winner resolve must render
-        BIT-EQUAL to the row-parallel per-row fetch: same winner, same
-        interpolation expression order, only fetch placement differs."""
-        import os
-        import jax
-        from pathtracer_tpu.render.renderer import (
-            RenderConfig, init_accum, render_chunk, resolve,
-        )
+    def test_large_uv_mesh_matches_oracle(self):
+        """End-to-end: a 1500-tri UV-textured mesh (chunked brute-force
+        loop + flat texel gathers) vs the scalar oracle."""
         from pathtracer_tpu.scene.camera import define_camera
-        from pathtracer_tpu.utils import prng
-        scenes = []
-        for env in (None, "1"):
-            if env:
-                os.environ["PT_NO_UV_CFM"] = env
-            try:
-                scenes.append(_uv_mesh_builder(1500).finalize())
-            finally:
-                os.environ.pop("PT_NO_UV_CFM", None)
-        assert scenes[0].stream_uv_cfm and not scenes[1].stream_uv_cfm
-        w, h, pp = 16, 8, 2
-        cam = define_camera((0, -24, 2), (0, 0, 0), 35.0, w, h)
-        key = prng.base_key(9)
-        imgs = []
-        for sc in scenes:
-            jax.clear_caches()
-            cfg = RenderConfig(width=w, height=h, pp=pp, seed=9,
-                               backend="pallas-interpret")
-            st = render_chunk(sc, cam, cfg, key, np.int32(0), cfg.spp,
-                              init_accum(w * h))
-            imgs.append(np.asarray(resolve(st, cfg)))
-        np.testing.assert_array_equal(imgs[0], imgs[1])
-
-    def test_dma_uv_tier_bit_equal_to_resident(self):
-        """PT_STREAM_DMA=1 forces the DMA tier on a mesh-UV scene: the uv
-        rows double-buffer through their OWN scratch + semaphore pair.
-        Same scene, same data, only residency changes — the interpret
-        kernel renders must be BIT-EQUAL to the resident tier's."""
-        import os
-        import jax.numpy as jnp
-        from pathtracer_tpu.render.pallas_backend import (
-            render_chunk_pallas, supports)
-        from pathtracer_tpu.render.renderer import init_accum
-        from pathtracer_tpu.utils import prng
-        w, h = 16, 8
-        cfg = RenderConfig(width=w, height=h, pp=2, seed=4)
-        n = w * h
-        outs = []
-        for force in (False, True):
-            if force:
-                os.environ["PT_STREAM_DMA"] = "1"
-            try:
-                scene = _uv_mesh_builder(1500).finalize()
-            finally:
-                if force:
-                    del os.environ["PT_STREAM_DMA"]
-            assert scene.tri_dma == force and scene.tex_stack_tiled
-            assert supports(scene, cfg)
-            from pathtracer_tpu.scene.camera import define_camera
-            cam = define_camera((0, -24, 2), (0, 0, 0), 35.0, w, h)
-            st = render_chunk_pallas(scene, cam, cfg, prng.base_key(4),
-                                     jnp.int32(0), 2, init_accum(n),
-                                     jnp.arange(n, dtype=jnp.int32),
-                                     interpret=True)
-            outs.append(st)
-        np.testing.assert_array_equal(np.asarray(outs[0].sum.x),
-                                      np.asarray(outs[1].sum.x))
-        np.testing.assert_array_equal(np.asarray(outs[0].sum.z),
-                                      np.asarray(outs[1].sum.z))
-        np.testing.assert_array_equal(np.asarray(outs[0].count),
-                                      np.asarray(outs[1].count))
-
-    def test_uv_mesh_halves_the_resident_cap(self):
-        """Mesh-UV scenes carry a PARALLEL uv-row table as large as the
-        pack rows, doubling the kernel's resident VMEM footprint —
-        finalize must send them to the DMA tier at STREAM_MAX//2 instead
-        of STREAM_MAX (schema.py resident_cap)."""
-        from pathtracer_tpu.scene import clusters as clu
-        saved = clu.STREAM_MAX
-        try:
-            # 1500 tris > 1400//2: a UV mesh crosses the HALVED cap even
-            # though it is under STREAM_MAX itself
-            clu.STREAM_MAX = 1400
-            assert _uv_mesh_builder(1500).finalize().tri_dma
-            # 1500 tris <= 4096//2: under the halved cap -> resident
-            clu.STREAM_MAX = 4096
-            assert not _uv_mesh_builder(1500).finalize().tri_dma
-        finally:
-            clu.STREAM_MAX = saved
-
-    def test_streamed_uv_render_matches_oracle(self):
-        """End-to-end: a 1500-tri UV-textured mesh through the
-        interpret-mode kernel (streamed records + parallel uv rows +
-        windowed texel fetch) vs the scalar oracle."""
-        from pathtracer_tpu.render.renderer import (
-            RenderConfig as RC, init_accum, render_chunk, resolve)
-        from pathtracer_tpu.scene.camera import define_camera
-        from pathtracer_tpu.utils import prng
         b = _uv_mesh_builder(1500)
         scene = b.finalize()
-        assert scene.tri_streamed and scene.tex_stack_tiled
         w, h, pp = 16, 8, 2
         cam = define_camera((0, -24, 2), (0, 0, 0), 35.0, w, h)
-        cfg = RC(width=w, height=h, pp=pp, seed=2,
-                 backend="pallas-interpret")
-        st = render_chunk(scene, cam, cfg, prng.base_key(2), np.int32(0),
-                          cfg.spp, init_accum(w * h))
-        img = np.asarray(resolve(st, cfg))
+        cfg = RenderConfig(width=w, height=h, pp=pp, seed=2)
+        img, _, _ = render_image(scene, cam, cfg)
         oracle = render_oracle(b, cam, w, h, pp, seed=2, world_kind=0)
-        dmax = np.abs(img - oracle).max(axis=-1)
+        dmax = np.abs(np.asarray(img) - oracle).max(axis=-1)
         assert np.median(dmax) < 1e-4, float(np.median(dmax))
         assert (dmax > 1e-2).mean() < 0.05, float((dmax > 1e-2).mean())

@@ -2,22 +2,20 @@
 
 The reference SHIPS a mip chain builder (GenerateMipmapChain,
 win32_main.cpp:2307-2328) but samples mips[0] at every use site
-(:620,630,639,1604) — mip selection was on its TODO list. The TPU build
+(:620,630,639,1604) — mip selection was on its TODO list. This renderer
 finishes the feature behind an opt-in flag: mip-0-only stays the
 reference-parity default, and `mip_scale > 0` enables per-bounce LOD
 selection with an exact oracle twin (cpu_oracle._mip_lod), so the golden
 methodology extends to the new estimator unchanged.
 
 Device layout under test (schema.WorldBuilder.finalize): the combined
-2-word texel pyramid concatenates every level's flat plane and 8x8-tiled
-rows, LEVEL 0 FIRST — mip-0-only consumers read the same leading words as
-before. GenerateMipmapChain's child = parent at uv=(2x,2y) is exact
+2-word texel pyramid concatenates every level's flat plane, LEVEL 0 FIRST —
+mip-0-only consumers read the same leading words as before. GenerateMipmapChain's child = parent at uv=(2x,2y) is exact
 even-texel decimation, so device level l is literally comb[::2^l, ::2^l]
 re-quantization-free.
 """
 
 import numpy as np
-import pytest
 
 import jax
 import jax.numpy as jnp
@@ -45,10 +43,10 @@ class TestPyramidLayout:
         assert len(meta) >= 2, "world 1's 512x512 set must build a pyramid"
         A = np.asarray(scene.tex_comb_a)
         B = np.asarray(scene.tex_comb_b)
-        w0 = meta[0][3]
+        w0 = meta[0][1]
         lvl0_a = A[: w0 * w0].reshape(w0, w0)
         lvl0_b = B[: w0 * w0].reshape(w0, w0)
-        for l, (row_off, tx, word_off, w, h) in enumerate(meta):
+        for l, (word_off, w, h) in enumerate(meta):
             assert w == h == w0 >> l
             dec_a = lvl0_a[:: 1 << l, :: 1 << l][:w, :w]
             dec_b = lvl0_b[:: 1 << l, :: 1 << l][:w, :w]
@@ -57,32 +55,13 @@ class TestPyramidLayout:
             np.testing.assert_array_equal(
                 B[word_off: word_off + w * w].reshape(w, w), dec_b)
 
-    def test_tiled_rows_match_flat_planes(self):
-        """The 8x8-tiled twin (tex_tile) holds the same words as the flat
-        planes at every level, at the documented row/word offsets
-        (Scene.tex_tile layout doc)."""
-        scene, _ = finalize_world(WORLD_DEFAULT, 8, 8)
-        A = np.asarray(scene.tex_comb_a)
-        B = np.asarray(scene.tex_comb_b)
-        T = np.asarray(scene.tex_tile)
-        rs = np.random.RandomState(11)
-        for (row_off, tx, word_off, w, h) in scene.tex_mip_meta:
-            for _ in range(16):
-                x = int(rs.randint(w))
-                y = int(rs.randint(h))
-                row = row_off + (y >> 3) * tx + (x >> 3)
-                off = (((y & 7) << 3) | (x & 7)) << 1
-                assert T[row, off] == A[word_off + y * w + x]
-                assert T[row, off + 1] == B[word_off + y * w + x]
-
     def test_level0_leads(self):
-        """Mip-0-only consumers are untouched: leading words/rows are the
-        level-0 tables and tex_comb_w/tiles_x describe level 0."""
+        """Mip-0-only consumers are untouched: the leading words are the
+        level-0 tables and tex_comb_w/h describe level 0."""
         scene, _ = finalize_world(WORLD_DEFAULT, 8, 8)
-        row_off, tx, word_off, w, h = scene.tex_mip_meta[0]
-        assert (row_off, word_off) == (0, 0)
+        word_off, w, h = scene.tex_mip_meta[0]
+        assert word_off == 0
         assert (w, h) == (scene.tex_comb_w, scene.tex_comb_h)
-        assert tx == scene.tex_tiles_x
 
 
 class TestMipSampling:
@@ -98,53 +77,6 @@ class TestMipSampling:
         for p, q in zip(jax.tree_util.tree_leaves(a),
                         jax.tree_util.tree_leaves(b)):
             np.testing.assert_array_equal(np.asarray(p), np.asarray(q))
-
-    def test_windowed_mip_words_exact(self):
-        """The Pallas windowed fetch with per-lane lods returns the exact
-        corner words of each lane's level (same gate as the lod=None
-        twin in test_pallas.TestWindowedFetchExact, extended to mixed
-        levels interleaving their tile rows)."""
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        scene, _ = finalize_world(WORLD_DEFAULT, 8, 8)
-        R, C = 8, 128
-        rs = np.random.RandomState(7)
-        u = jnp.asarray(rs.uniform(-34, 34, (R, C)), jnp.float32)
-        v = jnp.asarray(rs.uniform(-34, 34, (R, C)), jnp.float32)
-        needs = jnp.asarray(rs.rand(R, C) < 0.8)
-        n_lvl = len(scene.tex_mip_meta)
-        lod = jnp.asarray(rs.randint(0, n_lvl, (R, C)), jnp.int32)
-
-        def kernel(u_ref, v_ref, n_ref, l_ref, tab_ref, *o_refs):
-            wa, wb, s, t = tex.bespoke_sample_combined_windowed(
-                scene, tab_ref, u_ref[:], v_ref[:], n_ref[:] != 0,
-                return_words=True, lod=l_ref[:])
-            for r, val in zip(o_refs, list(wa) + list(wb)):
-                r[:] = val
-
-        outs = pl.pallas_call(
-            kernel,
-            out_shape=[jax.ShapeDtypeStruct((R, C), jnp.int32)] * 8,
-            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 5,
-            out_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 8,
-            interpret=True,
-        )(u, v, needs.astype(jnp.int32), lod, scene.tex_tile)
-
-        x1, y1, x2, y2, _, _, _, _, word_off, w = tex._combined_coords_mip(
-            scene, u.reshape(-1), v.reshape(-1), lod.reshape(-1))
-        A = np.asarray(scene.tex_comb_a)
-        B = np.asarray(scene.tex_comb_b)
-        x1, y1, x2, y2, word_off, w = (
-            np.asarray(a) for a in (x1, y1, x2, y2, word_off, w))
-        want = [A[word_off + y1 * w + x1], A[word_off + y1 * w + x2],
-                A[word_off + y2 * w + x1], A[word_off + y2 * w + x2],
-                B[word_off + y1 * w + x1], B[word_off + y1 * w + x2],
-                B[word_off + y2 * w + x1], B[word_off + y2 * w + x2]]
-        mask = np.asarray(needs).reshape(-1)
-        for got, wv in zip(outs, want):
-            np.testing.assert_array_equal(
-                np.asarray(got).reshape(-1)[mask], wv[mask])
 
 
 class TestMipGolden:

@@ -1,8 +1,11 @@
-"""Multi-chip sharding: bit-identical to single-chip, collectives work.
+"""Multi-device sharding: bit-identical to single-device, collectives work.
 
 Runs on the 8-virtual-device CPU mesh (conftest.py), the strategy SURVEY.md
-§4 prescribes for distributed testing without TPU hardware.
+§4 prescribes for distributed testing without accelerator hardware.
 """
+
+import os
+import sys
 
 import jax
 import numpy as np
@@ -10,7 +13,7 @@ import pytest
 
 from pathtracer_tpu import RenderConfig, finalize_world, render_image
 from pathtracer_tpu.parallel.shard import make_mesh, render_image_sharded
-from pathtracer_tpu.scene.schema import WORLD_CORNELL_BOX, WORLD_DEFAULT
+from pathtracer_tpu.scene.schema import WORLD_CORNELL_BOX
 
 
 @pytest.fixture(scope="module")
@@ -59,105 +62,23 @@ class TestSharded:
         np.testing.assert_array_equal(np.asarray(img1), np.asarray(img4))
 
 
-class TestShardedKernel:
-    """The PRODUCTION multi-chip configuration — the Pallas kernel running
-    inside shard_map — exercised via backend="pallas-interpret" on the
-    8-virtual-device CPU mesh (round-2 verdict weak #4: this composition
-    was previously untested code)."""
-
-    def test_cornell_sharded_kernel_matches_single(self, cornell_small):
-        # untextured, unclustered Cornell evaluates the identical
-        # expression graph in kernel and XLA drivers -> bit-equal
-        scene, cam = cornell_small
-        cfg = RenderConfig(width=24, height=16, pp=2, seed=0,
-                           backend="pallas-interpret")
-        cfg_x = RenderConfig(width=24, height=16, pp=2, seed=0)
-        img1, _, _ = render_image(scene, cam, cfg_x)
-        img8, _, st8 = render_image_sharded(scene, cam, cfg)
-        np.testing.assert_array_equal(np.asarray(img1), np.asarray(img8))
-        assert float(st8.rays_cast) > 0
-
-    def test_world1_sharded_kernel_tolerance(self):
-        # textured world 1: kernel uses the windowed texel fetch — raw
-        # words are bit-exact and since jax 0.9.0 the blends differ only
-        # at the fma-contraction rounding scale (the old XLA:CPU
-        # neighboring-texel miscompile no longer reproduces; see
-        # experiments/interpret_miscompile_repro.py). Measured profile:
-        # 94% bit-equal, max diff 2.4e-7 — gate with margin.
-        scene, cam = finalize_world(WORLD_DEFAULT, 24, 16)
-        cfg = RenderConfig(width=24, height=16, pp=1, seed=0,
-                           backend="pallas-interpret")
-        cfg_x = RenderConfig(width=24, height=16, pp=1, seed=0)
-        img1, _, _ = render_image(scene, cam, cfg_x)
-        img8, _, _ = render_image_sharded(scene, cam, cfg)
-        d = np.abs(np.asarray(img1) - np.asarray(img8)).max(axis=-1)
-        assert (d == 0.0).mean() > 0.8, float((d == 0.0).mean())
-        assert (d > 1e-4).mean() < 0.01, float((d > 1e-4).mean())
-
-    def test_world6_quad_light_sharded_kernel_matches_single(self):
-        # world 6 (Cornell-quad): the quad-light NEE branch (PdfValueQuad
-        # mixture, area-Jacobian form) under shard_map. Untextured and
-        # unclustered, so kernel and XLA evaluate the identical
-        # expression graph -> bit-equal, like the Cornell test.
-        from pathtracer_tpu.scene.schema import WORLD_CORNELL_QUAD
-        scene, cam = finalize_world(WORLD_CORNELL_QUAD, 24, 16)
-        cfg = RenderConfig(width=24, height=16, pp=2, seed=0,
-                           backend="pallas-interpret")
-        cfg_x = RenderConfig(width=24, height=16, pp=2, seed=0)
-        img1, _, _ = render_image(scene, cam, cfg_x)
-        img8, _, st8 = render_image_sharded(scene, cam, cfg)
-        np.testing.assert_array_equal(np.asarray(img1), np.asarray(img8))
-        assert float(st8.rays_cast) > 0
-
-    def test_fog_sharded_kernel_matches_single(self):
-        # fog (volumetric distance sampling + HG phase + volume NEE,
-        # jnp.log in-kernel) through pallas-interpret under shard_map —
-        # the god-rays configuration's multi-chip path. Same functions
-        # in both drivers, untextured scene -> identical graph ->
-        # bit-equal.
-        from pathtracer_tpu.scene.camera import define_camera
-        from pathtracer_tpu.scene.feature_scenes import FEATURE_CASES
-        scene, (pos, target, fov), _ = FEATURE_CASES["fog"]()
-        cam = define_camera(pos, target, fov, 24, 16)
-        cfg = RenderConfig(width=24, height=16, pp=2, seed=0,
-                           backend="pallas-interpret")
-        cfg_x = RenderConfig(width=24, height=16, pp=2, seed=0)
-        img1, _, _ = render_image(scene, cam, cfg_x)
-        img8, _, _ = render_image_sharded(scene, cam, cfg)
-        np.testing.assert_array_equal(np.asarray(img1), np.asarray(img8))
-
-    def test_world7_mesh_uv_sharded_kernel_tolerance(self):
-        # world 7 (UV-textured sphere mesh): the streamed tier with
-        # parallel uv rows + the windowed uv-stack fetch, under
-        # shard_map. Same gate as world 1 (fma-contraction rounding
-        # only since jax 0.9.0; measured 93% bit-equal, max 7.2e-6).
-        from pathtracer_tpu.scene.schema import WORLD_MESH_UV
-        scene, cam = finalize_world(WORLD_MESH_UV, 24, 16)
-        cfg = RenderConfig(width=24, height=16, pp=1, seed=0,
-                           backend="pallas-interpret")
-        cfg_x = RenderConfig(width=24, height=16, pp=1, seed=0)
-        img1, _, _ = render_image(scene, cam, cfg_x)
-        img8, _, _ = render_image_sharded(scene, cam, cfg)
-        d = np.abs(np.asarray(img1) - np.asarray(img8)).max(axis=-1)
-        assert (d == 0.0).mean() > 0.8, float((d == 0.0).mean())
-        assert (d > 1e-4).mean() < 0.01, float((d > 1e-4).mean())
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 class TestGraftEntry:
     def test_entry_jits(self):
-        import sys
-        sys.path.insert(0, "/root/repo")
+        sys.path.insert(0, REPO)
         import __graft_entry__ as g
         fn, args = g.entry()
         out = jax.jit(fn)(*args)
         assert float(np.asarray(out.rays_cast)) > 0
         assert int(np.asarray(out.samples_done)) == 1
 
-    def test_dryrun_multichip(self):
-        import sys
-        sys.path.insert(0, "/root/repo")
+    @pytest.mark.parametrize("n_devices", [8, 4])
+    def test_dryrun_multichip(self, n_devices):
+        sys.path.insert(0, REPO)
         import __graft_entry__ as g
-        g.dryrun_multichip(8)
+        g.dryrun_multichip(n_devices)
 
 
 class TestShardedResume:
